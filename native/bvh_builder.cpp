@@ -1,10 +1,10 @@
-// Native BVH builder for raytrace2_tpu.
+// Native BVH builder for raytrace2.
 //
 // Reimplements the reference's build algorithm (median split on the span
 // bounds' longest axis, children sorted by AABB min on that axis —
-// /root/reference/src/cpu_raytrace/BVH.cpp:10-48) over flat arrays, with
+// the reference's src/cpu_raytrace/BVH.cpp:10-48) over flat arrays, with
 // pre-order node numbering identical to the NumPy builder in
-// raytrace2_tpu/scene/bvh.py (the two are cross-checked by
+// raytrace2/scene/bvh.py (the two are cross-checked by
 // tests/test_bvh.py). Exposed via a C ABI for ctypes.
 //
 // Build: make -C native     (produces libbvh.so)

@@ -6,9 +6,10 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
-from raytrace2_tpu.app import load_app_settings, main
-from raytrace2_tpu.io import image
+from raytrace2.app import load_app_settings, main
+from raytrace2.io import image
 
 
 def _scene_json():
@@ -89,9 +90,10 @@ def test_module_invocation(tmp_path):
     scene = tmp_path / "scene.json"
     scene.write_text(json.dumps(_scene_json()))
     out = tmp_path / "out.png"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
     r = subprocess.run(
-        [sys.executable, "-m", "raytrace2_tpu", str(scene), str(out),
+        [sys.executable, "-m", "raytrace2", str(scene), str(out),
          "--samples", "1", "--depth", "2"],
         capture_output=True, text=True, env=env, timeout=300,
     )
@@ -115,7 +117,7 @@ def test_cli_watch_reloads_scene(tmp_path):
     # Rewrite the scene from INSIDE the render loop (after the 4th batch)
     # so the test is deterministic regardless of jit-compile timing — a
     # wall-clock thread races a warm-cache render that finishes in <2 s.
-    from raytrace2_tpu.render import Renderer
+    from raytrace2.render import Renderer
 
     calls = {"n": 0}
     orig_update = Renderer.update
@@ -166,28 +168,37 @@ def test_cli_metrics_jsonl(tmp_path):
 
 
 def test_cli_backend_flag(tmp_path):
-    """--backend forces the intersection backend through the real CLI; the
-    kernel backends (mega/wavefront) run in interpret mode on CPU and
-    render the bitwise-identical image to each other (same counter-hash
-    streams), while xla uses its own threefry streams (same scene, other
-    draw)."""
+    """--backend forces the render path through the real CLI: xla and bvh
+    trace the same threefry streams (the BVH only changes how spheres are
+    swept), and mega runs the megakernel — interpreted on the CPU — on its
+    own counter-hash streams (same scene, other draw). A backend outside
+    auto|xla|bvh|mega is refused."""
     scene = tmp_path / "scene.json"
     scene.write_text(json.dumps(_scene_json()))
     outs = {}
-    for backend in ("xla", "mega", "wavefront"):
+    for backend in ("xla", "bvh", "mega"):
         out = tmp_path / f"out_{backend}.png"
         rc = main([str(scene), str(out), "--samples", "2", "--depth", "4",
                    "--quiet", "--backend", backend])
         assert rc == 0
-        outs[backend] = image.decode_png(out.read_bytes())
-    assert np.array_equal(outs["mega"], outs["wavefront"])
+        outs[backend] = image.decode_png(out.read_bytes()).astype(np.int32)
+    assert np.abs(outs["bvh"] - outs["xla"]).max() <= 1
     assert abs(float(outs["mega"].mean()) - float(outs["xla"].mean())) < 20.0
     assert outs["mega"].mean() > 10
+    with pytest.raises(SystemExit):
+        main([str(scene), "--backend", "wavefront"])
+    # A noise texture is outside the kernel's scope: forcing it is refused.
+    noisy = dict(_scene_json(), textures=[
+        {"type": "noise", "scale": 2.0, "noise_type": 1, "albedo": [1, 1, 1]}])
+    noisy["materials"] = [{"type": "texture", "tex_idx": 0}] + noisy["materials"][1:]
+    scene.write_text(json.dumps(noisy))
+    assert main([str(scene), str(tmp_path / "n.png"), "--samples", "1",
+                 "--quiet", "--backend", "mega"]) == 1
 
 
 def test_key_controls_inactive_off_tty():
     """Piped/CI stdin: the key poller must stay inert."""
-    from raytrace2_tpu import app as app_mod
+    from raytrace2 import app as app_mod
 
     kc = app_mod._KeyControls(enabled=True)
     assert not kc.active
@@ -199,7 +210,7 @@ def test_cli_key_quit_and_snapshot(tmp_path, monkeypatch):
     """'w' writes a snapshot mid-render, 'q' ends the run early but still
     writes the final image — the headless ImGui-panel analog
     (App.cpp:210-229)."""
-    from raytrace2_tpu import app as app_mod
+    from raytrace2 import app as app_mod
 
     scene = tmp_path / "scene.json"
     scene.write_text(json.dumps(_scene_json()))

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace2_tpu.scene import bvh as bvh_mod
-from raytrace2_tpu.ops import bvh_traverse
+from raytrace2.scene import bvh as bvh_mod
+from raytrace2.ops import bvh_traverse
 
 pytestmark = pytest.mark.tier0
 
@@ -171,9 +171,9 @@ def test_closest_hit_bvh_matches_dense():
     including moving spheres (motion-inclusive AABBs)."""
     import dataclasses
 
-    from raytrace2_tpu import defs
-    from raytrace2_tpu.ops import intersect
-    from raytrace2_tpu.scene import schema
+    from raytrace2 import defs
+    from raytrace2.ops import intersect
+    from raytrace2.scene import schema
 
     rs = np.random.RandomState(11)
     n = 300
@@ -227,7 +227,7 @@ def test_closest_hit_bvh_matches_dense():
     )
     np.testing.assert_array_equal(np.asarray(hd.valid), np.asarray(hb.valid))
     hit = np.asarray(hd.valid)
-    # rtol 2e-4: the dense sweep expands oc·oc algebraically into MXU
+    # rtol 2e-4: the dense sweep expands oc·oc algebraically into
     # contractions (c0·c0 + 2t c0·disp + ... − 2 o·c0 + o·o), while the BVH
     # leaf computes oc = c−o directly — mathematically identical, different
     # f32 rounding (observed max rel ≈ 7e-5 over 300 spheres).
@@ -240,13 +240,13 @@ def test_closest_hit_bvh_matches_dense():
 
 
 def test_renderer_bvh_backend_matches_dense(data_dir):
-    """End-to-end production caller: Renderer(backend='bvh') on book1 (484
-    spheres, the BVH eval-ladder scene) must render the same image as the
-    dense XLA path — same RNG streams, same hits, sublinear sweep."""
-    from raytrace2_tpu import render as render_mod
-    from raytrace2_tpu.scene import loader
+    """End-to-end production caller: Renderer(backend='bvh') on book1 (486
+    spheres) must render the same image as the dense XLA path — same RNG
+    streams, same hits, sublinear sweep."""
+    from raytrace2 import render as render_mod
+    from raytrace2.scene import loader
 
-    scene, _ = loader.load_scene(f"{data_dir}/final_render_book_1.json")
+    scene, _ = loader.load_scene(f"{data_dir}/book1_final.json")
     kw = dict(width=24, height=16, num_samples=4, max_depth=6, seed=0,
               chunk_size=None)
     r_dense = render_mod.Renderer(scene=scene, backend="xla", **kw)
@@ -259,20 +259,20 @@ def test_renderer_bvh_backend_matches_dense(data_dir):
     np.testing.assert_allclose(img_b, img_d, rtol=1e-4, atol=1e-5)
 
 
-def test_scenes_beyond_smem_limit_use_bvh_fallback():
-    """Scaling story past MAX_SMEM_RECORDS (4096): a 5,000-sphere scene is
-    megakernel-ineligible, so 'auto' routes to the XLA path with the sphere
-    BVH enabled — sublinear like the reference's App-level BVH wrap
-    (src/App.cpp:126) — and renders the same image as the forced-dense
-    sweep."""
+def test_scenes_beyond_record_limit_use_bvh_fallback(monkeypatch):
+    """Past megakernel.MAX_RECORDS (4096) a 5,000-sphere scene is outside
+    the kernel's scope even on a GPU, so 'auto' routes to the XLA path with
+    the sphere BVH enabled — sublinear like the reference's App-level BVH
+    wrap (src/App.cpp:126) — and renders the same image as the
+    forced-dense sweep."""
     import dataclasses
 
-    from raytrace2_tpu import render as render_mod
-    from raytrace2_tpu.ops.pallas import megakernel as mk
-    from raytrace2_tpu.scene import perlin, schema
+    from raytrace2 import render as render_mod
+    from raytrace2.ops.pallas import megakernel as mk
+    from raytrace2.scene import perlin, schema
 
     rs = np.random.RandomState(7)
-    n = mk.MAX_SMEM_RECORDS + 904  # 5,000
+    n = mk.MAX_RECORDS + 904  # 5,000
     # Non-overlapping grid (spacing 1.5 > 2*max radius): overlapping random
     # spheres would legitimately flip closest-hit winners between the BVH
     # and dense sweeps on f32 ties, which is not what this test gates.
@@ -313,9 +313,11 @@ def test_scenes_beyond_smem_limit_use_bvh_fallback():
     )
     kw = dict(width=16, height=12, num_samples=1, max_depth=4, seed=0,
               chunk_size=None)
+    monkeypatch.setattr(render_mod.jax, "default_backend", lambda: "gpu")
     r_auto = render_mod.Renderer(scene=scene, backend="auto", **kw)
+    monkeypatch.undo()
     feats = dict(r_auto._features)
-    assert not feats["use_megakernel"], "5k records must not fit SMEM"
+    assert not feats["use_megakernel"], "5k records exceed the kernel's scope"
     assert feats["use_bvh_spheres"], "auto must enable the BVH fallback"
     r_dense = render_mod.Renderer(
         scene=dataclasses.replace(scene), backend="xla", **kw)
@@ -336,20 +338,19 @@ def test_scenes_beyond_smem_limit_use_bvh_fallback():
     assert abs(img_a.mean() - img_d.mean()) < 0.01
 
 
-def test_max_records_override_routes_to_megakernel(data_dir, monkeypatch):
-    """Renderer(max_records=...) raises the megakernel eligibility ceiling
-    (for probing how far the packed SMEM tables fit on a chip generation)
-    without touching the measured default."""
-    from raytrace2_tpu import render as render_mod
-    from raytrace2_tpu.ops.pallas import megakernel as mk
-    from raytrace2_tpu.scene import loader
+def test_gpu_auto_routes_cornell_to_megakernel(data_dir, monkeypatch):
+    """On a GPU 'auto' takes the kernel for a scene it supports (compiled,
+    never interpreted); on the CPU it takes XLA; 'mega' forces the kernel,
+    interpreted on the CPU."""
+    from raytrace2 import render as render_mod
+    from raytrace2.scene import loader
 
     scene, _ = loader.load_scene(f"{data_dir}/cornell_box_original.json")
-    monkeypatch.setattr(render_mod.jax, "default_backend", lambda: "tpu")
     kw = dict(width=16, height=12, num_samples=1, max_depth=4, seed=0)
-    r = render_mod.Renderer(scene=scene, backend="auto", **kw)
-    assert dict(r._features)["use_megakernel"]  # 16 records, eligible
-    r2 = render_mod.Renderer(scene=scene, backend="auto", max_records=8,
-                             **kw)
-    assert not dict(r2._features)["use_megakernel"]  # ceiling lowered
-    assert mk.MAX_SMEM_RECORDS == 4096  # default untouched
+    cpu = dict(render_mod.Renderer(scene=scene, backend="auto", **kw)._features)
+    assert not cpu["use_megakernel"]
+    forced = dict(render_mod.Renderer(scene=scene, backend="mega", **kw)._features)
+    assert forced["use_megakernel"] and forced["mega_interpret"]
+    monkeypatch.setattr(render_mod.jax, "default_backend", lambda: "gpu")
+    gpu = dict(render_mod.Renderer(scene=scene, backend="auto", **kw)._features)
+    assert gpu["use_megakernel"] and not gpu["mega_interpret"]

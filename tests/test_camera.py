@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytrace2_tpu import defs
-from raytrace2_tpu.scene import schema
-from raytrace2_tpu.ops import camera as cam_ops, rng
+from raytrace2 import defs
+from raytrace2.scene import schema
+from raytrace2.ops import camera as cam_ops, rng
 
 
 def _cam(center=(0, 0, 0), look_at=(0, 0, -1), vfov=90.0, defocus=0.0, focus=1.0):

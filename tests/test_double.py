@@ -15,9 +15,9 @@ import pytest
 
 _WORKER = """
 import sys, numpy as np
-from raytrace2_tpu.scene import loader, schema
-from raytrace2_tpu.ops import integrator
-from raytrace2_tpu import defs
+from raytrace2.scene import loader, schema
+from raytrace2.ops import integrator
+from raytrace2 import defs
 import jax.numpy as jnp
 
 scene, dims = loader.load_scene(sys.argv[1])

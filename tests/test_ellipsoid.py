@@ -18,9 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace2_tpu import defs
-from raytrace2_tpu.ops import integrator, intersect
-from raytrace2_tpu.scene import loader, schema
+from raytrace2 import defs
+from raytrace2.ops import integrator, intersect
+from raytrace2.scene import loader, schema
 
 
 def _scene_json(scale, rotate_deg=0.0):
@@ -169,7 +169,7 @@ def test_ellipsoid_scene_renders_and_differentiates(tmp_path):
     arr = np.asarray(img)
     assert np.isfinite(arr).all() and arr.mean() > 0.0
 
-    from raytrace2_tpu import grad as grad_mod
+    from raytrace2 import grad as grad_mod
 
     def loss(im):
         return jnp.mean(im)

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace2_tpu import grad as grad_mod
-from raytrace2_tpu.scene import loader, schema
+from raytrace2 import grad as grad_mod
+from raytrace2.scene import loader, schema
 
 
 def _scene(tmp_path):
@@ -100,8 +100,8 @@ def test_intersection_solve_gradients(tmp_path):
     the hit *solve* vs. closed form. Ray from the origin along -z, sphere
     center (0,0,cz), radius r: near surface at z = cz + r → t = -(cz + r),
     so dt/dr = -1 and dt/dcz = -1."""
-    from raytrace2_tpu.ops import intersect
-    from raytrace2_tpu.scene import schema as sch
+    from raytrace2.ops import intersect
+    from raytrace2.scene import schema as sch
     import numpy as np_
 
     def make(r, cz):

@@ -3,7 +3,7 @@ and PNG round-trip."""
 
 import numpy as np
 
-from raytrace2_tpu.io import image
+from raytrace2.io import image
 import pytest
 
 pytestmark = pytest.mark.tier0

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace2_tpu.scene import loader, schema
-from raytrace2_tpu.ops import integrator
-from raytrace2_tpu import render as render_mod
+from raytrace2.scene import loader, schema
+from raytrace2.ops import integrator
+from raytrace2 import render as render_mod
 
 
 def _build(scene_json: dict, tmp_path, name="s.json"):

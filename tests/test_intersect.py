@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytrace2_tpu import defs
-from raytrace2_tpu.scene import schema
-from raytrace2_tpu.ops import intersect
+from raytrace2 import defs
+from raytrace2.scene import schema
+from raytrace2.ops import intersect
 import pytest
 
 pytestmark = pytest.mark.tier0

@@ -1,6 +1,6 @@
-"""Scene-loading tests: every reference data/ scene (both JSON format
-generations, see src/Serialize.cpp:199-360 and SURVEY.md §2.8) must compile to
-a flattened SoA scene with sane invariants."""
+"""Scene-loading tests: every data/ scene (both JSON format generations,
+see src/Serialize.cpp:199-360 and SURVEY.md §2.8) must compile to a
+flattened SoA scene with sane invariants."""
 
 import glob
 import os
@@ -8,25 +8,48 @@ import os
 import numpy as np
 import pytest
 
-from raytrace2_tpu import defs
-from raytrace2_tpu.scene import loader
+from raytrace2 import defs
+from raytrace2.scene import loader
 
 pytestmark = pytest.mark.tier0
 
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
 ALL_SCENES = sorted(
     os.path.basename(p)
-    for p in glob.glob("/root/reference/data/*.json")
+    for p in glob.glob(os.path.join(DATA_DIR, "*.json"))
     # camera files are not scenes
-    if os.path.basename(p) not in ("cam1.json", "scene2_cam.json", "camera_checkered_spheres.json")
+    if not os.path.basename(p).startswith("camera_")
 )
 
 
-def test_load_repo_root_test_json():
-    """test.json (17k lines, generated book2 final scene) also loads."""
-    scene, dims = loader.load_scene("/root/reference/test.json")
-    # its scene list references only the first 408 primitives (older generator)
-    assert int(scene.quads.active.sum()) > 2000
-    assert int(scene.spheres.active.sum()) >= 5
+def test_enum_repr_material_types(tmp_path):
+    """An older make_scene.py serialized material types as Python enum
+    reprs ("MatType.lambertian"); the loader accepts the suffix."""
+    import json
+
+    doc = {
+        "camera": {"fov": 40, "center": [0, 0, 1], "look_at": [0, 0, 0]},
+        "materials": [{"type": "MatType.lambertian", "albedo": [0.5, 0.5, 0.5]},
+                      {"type": "MatType.metal", "albedo": [0.8, 0.8, 0.8],
+                       "fuzz": 0.1}],
+        "primitives": [
+            {"type": "sphere", "center": [0, 0, 0], "radius": 1.0, "material": 0},
+            {"type": "sphere", "center": [2, 0, 0], "radius": 0.5, "material": 1},
+        ],
+    }
+    p = tmp_path / "enum.json"
+    p.write_text(json.dumps(doc))
+    scene, _ = loader.load_scene(str(p))
+    assert int(scene.spheres.active.sum()) == 2
+    assert list(scene.materials.mtype[:2]) == [defs.MAT_LAMBERTIAN, defs.MAT_METAL]
+
+
+def test_data_dir_has_the_corpus():
+    assert {"cornell_box_original.json", "cornell_box_volume.json",
+            "book1_final.json", "book2_final_scene_10000_samples.json",
+            "checkered_spheres.json", "final_render_book_1.json",
+            "cornell_box_scene_graph.json"} <= set(ALL_SCENES)
 
 
 @pytest.mark.parametrize("name", ALL_SCENES)
@@ -56,8 +79,8 @@ def test_load_all_reference_scenes(name, data_dir):
 
 def test_book2_final_scene_counts(data_dir):
     """book2 final: 400 floor boxes (→2400 quads) + 1 light quad + 1007 spheres,
-    3 constant media (data/book2_final_scene_10000_samples.json, built by
-    make_scene.py:176-222)."""
+    2 constant media (data/book2_final_scene_10000_samples.json, built by
+    tools/make_scene.py book2_final, seed 0)."""
     scene, dims = loader.load_scene(
         os.path.join(data_dir, "book2_final_scene_10000_samples.json")
     )
@@ -111,8 +134,12 @@ def test_legacy_checkered_spheres(data_dir):
 
 
 def test_legacy_final_render_book1(data_dir):
+    """Legacy book-1 excerpt: spheres by material_id, one moving, and no
+    camera key."""
     scene, dims = loader.load_scene(os.path.join(data_dir, "final_render_book_1.json"))
-    assert int(scene.spheres.active.sum()) == 484
+    assert dims is None
+    assert int(scene.spheres.active.sum()) == 5
+    assert int((np.abs(scene.spheres.displacement).sum(-1) > 0).sum()) == 1
     # no camera key → loader defaults (src/Serialize.cpp:32-40)
     assert float(scene.camera.vfov) == 90.0
 
@@ -123,6 +150,11 @@ def test_scene_graph_nesting(data_dir):
     scene, _ = loader.load_scene(os.path.join(data_dir, "cornell_box_scene_graph.json"))
     nq = int(scene.quads.active.sum())
     assert nq == 6 + 3 * 6  # walls + 3 nested boxes
+    # The innermost box sits at the sum of its ancestors' translations:
+    # (100,0,100) + R15·((120,0,0) + R15·(0,100,120)) — its quads reach
+    # y = 100..200 (only the innermost level is lifted by 100).
+    q = np.asarray(scene.quads.q)[np.asarray(scene.quads.active)][6:]
+    assert np.isclose(q[:, 1].max(), 200.0, atol=1e-3)
 
 
 def test_instancing_duplicates():

@@ -2,16 +2,19 @@
 reference corpus structurally (make_scene.py parity)."""
 
 import json
+import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 
-sys.path.insert(0, "/root/repo/tools")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import make_scene  # noqa: E402
 
-from raytrace2_tpu.scene import loader  # noqa: E402
+from raytrace2.scene import loader  # noqa: E402
 
 
 def test_cornell_original_structure(tmp_path):
@@ -55,7 +58,7 @@ def test_book2_final_structure(tmp_path):
 
 def test_cli_writes_scene_and_settings(tmp_path):
     r = subprocess.run(
-        [sys.executable, "/root/repo/tools/make_scene.py", "--scene",
+        [sys.executable, os.path.join(REPO, "tools", "make_scene.py"), "--scene",
          "cornell_original", "--root", str(tmp_path), "--no-run"],
         capture_output=True, text=True, timeout=120,
     )
@@ -64,3 +67,28 @@ def test_cli_writes_scene_and_settings(tmp_path):
     assert settings["num_samples"] == 10 and settings["max_depth"] == 50
     scene = json.loads((tmp_path / "local/data/cornell_original.json").read_text())
     assert len(scene["primitives"]) == 8
+
+
+def test_book1_final_structure(tmp_path):
+    scene_file = tmp_path / "b1.json"
+    make_scene.book1_final(rng_seed=0).write_json(str(scene_file))
+    scene, dims = loader.load_scene(str(scene_file))
+    assert dims == (1200, 675)
+    n = int(np.asarray(scene.spheres.active).sum())
+    assert 450 < n < 490  # 22x22 small spheres, minus the clearing, + 4
+    assert np.any(np.asarray(scene.spheres.displacement) != 0)  # motion blur
+    assert float(scene.camera.defocus_angle) > 0                 # depth of field
+
+
+@pytest.mark.parametrize("name", sorted(make_scene.DATA_SCENES))
+def test_committed_scene_regenerates_byte_for_byte(name, tmp_path):
+    """data/<name> is what `make_scene.py --no-run --out` writes."""
+    canned, seed = make_scene.DATA_SCENES[name]
+    out = tmp_path / name
+    args = ["--scene", canned, "--root", str(tmp_path), "--out", str(out),
+            "--no-run"]
+    if seed is not None:
+        args += ["--seed", str(seed)]
+    assert make_scene.main(args) == 0
+    with open(os.path.join(REPO, "data", name), "rb") as f:
+        assert out.read_bytes() == f.read()

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytrace2_tpu import defs
-from raytrace2_tpu.scene import schema
-from raytrace2_tpu.ops import intersect, materials
+from raytrace2 import defs
+from raytrace2.scene import schema
+from raytrace2.ops import intersect, materials
 import pytest
 
 pytestmark = pytest.mark.tier0
@@ -58,7 +58,7 @@ def _shade(scene, mat_idx, normal, d_in, n=1024, front=True):
     keys = jax.random.split(jax.random.key(0), n)
     u = jax.jit(jax.vmap(lambda k: jax.random.uniform(k, (3,))))(keys)
     d_in = jnp.tile(jnp.asarray(d_in, jnp.float32), (n, 1))
-    from raytrace2_tpu.ops import rng as rng_ops
+    from raytrace2.ops import rng as rng_ops
 
     u_vec = rng_ops.unit_vec3_from_uniforms(u[:, 0], u[:, 1])
     return jax.jit(

@@ -3,13 +3,14 @@ recovers perturbed scene parameters (tools/optimize_scene.py — north-star
 differentiability surface; the reference has no gradients)."""
 
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace2_tpu.scene import loader, schema  # noqa: E402
+from raytrace2.scene import loader, schema  # noqa: E402
 from tools import optimize_scene as opt  # noqa: E402
 
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytrace2_tpu.ops import rng
+from raytrace2.ops import rng
 import pytest
 
 pytestmark = pytest.mark.tier0

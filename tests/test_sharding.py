@@ -1,15 +1,15 @@
-"""Multi-device tests on the virtual 8-device CPU mesh (same code path as
-real pods; SURVEY.md §4 item 5)."""
+"""Multi-device tests on the virtual 8-device CPU mesh (the same code path
+as several cards; SURVEY.md §4 item 5)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace2_tpu import render as render_mod
-from raytrace2_tpu.ops import integrator
-from raytrace2_tpu.parallel import sharding
-from raytrace2_tpu.scene import loader, schema
+from raytrace2 import render as render_mod
+from raytrace2.ops import integrator
+from raytrace2.parallel import sharding
+from raytrace2.scene import loader, schema
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -90,7 +90,7 @@ def test_distributed_gradient_matches_single_device(cornell, w, h):
     of the loss, not double-counted."""
     import dataclasses
 
-    from raytrace2_tpu import grad as grad_mod
+    from raytrace2 import grad as grad_mod
 
     scene, features = cornell
     kw = dict(width=w, height=h, max_depth=3, sqrt_spp=1, n_samples=2)
@@ -122,11 +122,10 @@ def test_distributed_gradient_matches_single_device(cornell, w, h):
 @pytest.mark.kernel
 @pytest.mark.parametrize("sp,dp", [(1, 8), (2, 4), (4, 2)])
 def test_sharded_megakernel_matches_single_device(cornell, sp, dp):
-    """v4 megakernel under shard_map (pixel tiles with global offsets +
-    sample psum) == single-device v4 batch, BITWISE, for every sp×dp
-    factorization of the mesh — RNG streams are keyed by (pixel, sample)
-    only, so the mesh layout must be invisible in the image (VERDICT r1 #9
-    sweep)."""
+    """Megakernel under shard_map (block-aligned pixel-slot ranges with
+    global offsets + sample psum) == the single-device kernel render,
+    BITWISE for dp-only meshes: RNG streams are keyed by (pixel, sample)
+    only, so the mesh layout must be invisible in the image."""
     scene, features = cornell
     feat = dict(features, use_megakernel=True, mega_interpret=True)
     w = h = 16
@@ -159,82 +158,3 @@ def test_dryrun_multichip_entrypoint():
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)
-
-
-@pytest.mark.kernel
-@pytest.mark.parametrize("sp,dp", [(1, 8), (2, 4)])
-def test_sharded_wavefront_matches_single_device(cornell, sp, dp):
-    """Sorted-wavefront kernel under shard_map: each device sorts and
-    traces its own pixel-tile shard; per-lane math is keyed by global
-    pixel id, so dp-only stays bitwise equal to the single-device
-    wavefront render (sp>1 reorders the sample psum: f32 tolerance)."""
-    scene, features = cornell
-    feat = dict(features, use_megakernel=True, mega_interpret=True,
-                mega_wavefront=True, mega_k_bounces=4)
-
-    w = h = 16
-    single = np.asarray(
-        jax.jit(
-            lambda s: integrator.render_progressive(
-                s, feat, w, h, jnp.int32(0), jnp.int32(4), 0, 5, 2
-            )
-        )(scene)
-    )
-    mesh = sharding.make_mesh(sp=sp, dp=dp)
-    shard = np.asarray(
-        sharding.render_samples_sharded_mega(
-            scene, tuple(sorted(feat.items())), jnp.int32(0), 0,
-            width=w, height=h, max_depth=5, sqrt_spp=2,
-            samples_per_device=4 // sp, mesh=mesh,
-        )
-    )
-    if sp == 1:
-        assert np.array_equal(shard, single), "dp-only layout must be bitwise"
-    else:
-        np.testing.assert_allclose(shard, single, rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.kernel
-@pytest.mark.parametrize("sp,dp", [(1, 8), (2, 4)])
-def test_distributed_mega_grad_matches_single_device(cornell, sp, dp):
-    """Distributed fwd+bwd through the Pallas kernels
-    (sharding.render_grad_sharded_mega: v4 forward + indexed-replay VJP on
-    every device, cotangents psum'd) == the single-device megakernel VJP.
-    n_samples is the TOTAL per-pixel count on any mesh shape (sp ranks
-    split it into disjoint blocks), so one single-device reference serves
-    every layout."""
-    ns_shard = ns_single = 2
-    from raytrace2_tpu import grad as grad_mod
-
-    scene, features = cornell
-    # mega_sublanes=8 + depth 2: interpret-mode compile of the shard_map'd
-    # fwd+bwd kernels grows ~3x per extra bounce and ~4x per tile-size
-    # step — this config keeps the test ~1 min (semantics are identical).
-    feat = dict(features, use_megakernel=True, mega_interpret=True,
-                mega_sublanes=8)
-    w, h = 16, 16
-    target = jnp.zeros((h, w, 3))
-
-    mesh = sharding.make_mesh(sp=sp, dp=dp)
-    loss_d, g_d = sharding.render_grad_sharded_mega(
-        scene, tuple(sorted(feat.items())), target, 0,
-        width=w, height=h, max_depth=2, sqrt_spp=1, n_samples=ns_shard,
-        mesh=mesh,
-    )
-
-    def loss_fn(img):
-        return jnp.sum((img - target) ** 2)
-
-    loss_s, g_s = grad_mod.value_and_grad_scene(
-        loss_fn, scene, tuple(sorted(feat.items())), 0,
-        width=w, height=h, max_depth=2, sqrt_spp=1, n_samples=ns_single,
-    )
-    np.testing.assert_allclose(float(loss_d), float(loss_s), rtol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(g_d.materials.albedo), np.asarray(g_s.materials.albedo),
-        rtol=1e-3, atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(g_d.camera.center), np.asarray(g_s.camera.center),
-        rtol=1e-3, atol=1e-6,
-    )

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from raytrace2_tpu.io import term
+from raytrace2.io import term
 
 
 def test_ansi_frame_shape_and_colors():

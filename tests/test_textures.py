@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytrace2_tpu import defs
-from raytrace2_tpu.scene import perlin
-from raytrace2_tpu.ops import textures as tex_ops
-from raytrace2_tpu.scene import schema
+from raytrace2 import defs
+from raytrace2.scene import perlin
+from raytrace2.ops import textures as tex_ops
+from raytrace2.scene import schema
 import pytest
 
 pytestmark = pytest.mark.tier0
@@ -132,41 +132,6 @@ def test_feature_gating_consistency():
     a = _value(tex, [0] * 8, pts, {"has_noise": True, "has_checker": True})
     b = _value(tex, [0] * 8, pts, {"has_noise": False, "has_checker": False})
     np.testing.assert_allclose(a, b)
-
-
-def test_table_perlin_matches_xla_path():
-    """The megakernel's table-Perlin evaluator (per-lane gathers over
-    pack_noise_tables' packed layout) is the SAME function as the XLA
-    path's textures.perlin_noise — evaluated here as plain jnp (the kernel
-    runs the identical trace). Covers the multi-texture nslot block
-    addressing. Reference: PerlinNoiseGen.cpp:66-88."""
-    from raytrace2_tpu.ops.pallas import megakernel as mk
-
-    tex = _textures_soa()
-
-    class _S:  # pack_noise_tables only reads .textures
-        textures = schema.Textures(**{
-            k: jnp.asarray(getattr(tex, k)) for k in (
-                "ttype", "albedo", "inv_scale", "scale", "even", "odd",
-                "noise_type", "perm", "grad")})
-
-    noise_rows = (3, 4)  # marble row 3 -> slot 0, perlin row 4 -> slot 1
-    ntab = np.asarray(mk.pack_noise_tables(_S, noise_rows))
-    assert ntab.shape == (8, 2 * 256)
-
-    rs = np.random.RandomState(11)
-    pts = rs.uniform(-4, 4, (8, 128, 3)).astype(np.float32)
-    px, py, pz = (jnp.asarray(pts[..., i]) for i in range(3))
-    ntab_j = jnp.asarray(ntab)
-
-    for slot, row in ((0, 3), (1, 4)):
-        base = jnp.full(px.shape, slot * mk.NOISE_TABLE_N, jnp.int32)
-        got = np.asarray(mk._table_perlin(px, py, pz, base, ntab_j))
-        want = np.asarray(tex_ops.perlin_noise(
-            jnp.asarray(tex.perm), jnp.asarray(tex.grad),
-            jnp.full((8 * 128,), row, jnp.int32),
-            jnp.asarray(pts.reshape(-1, 3)))).reshape(8, 128)
-        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
 
 
 def test_nested_checker_two_levels():

@@ -255,11 +255,62 @@ def book2_final(rng_seed: int | None = None) -> SceneBuilder:
     return scene
 
 
+def book1_final(rng_seed: int | None = None) -> SceneBuilder:
+    """Book 1's closing scene (random small spheres around three large
+    ones), with book 2's motion blur on the diffuse spheres: ~490 spheres,
+    depth of field, a sky background."""
+    rnd = random.Random(rng_seed)
+    scene = SceneBuilder()
+    scene.background_color = [0.7, 0.8, 1.0]
+    scene.add_sphere([0, -1000, 0], 1000, scene.add_lambertian([0.5, 0.5, 0.5]))
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose_mat = rnd.random()
+            center = [a + 0.9 * rnd.random(), 0.2, b + 0.9 * rnd.random()]
+            if sum((c - r) ** 2 for c, r in zip(center, (4, 0.2, 0))) <= 0.81:
+                continue
+            if choose_mat < 0.8:
+                albedo = [rnd.random() * rnd.random() for _ in range(3)]
+                scene.add_sphere_moving(center, [0, rnd.uniform(0, 0.5), 0],
+                                        0.2, scene.add_lambertian(albedo))
+            elif choose_mat < 0.95:
+                albedo = [rnd.uniform(0.5, 1) for _ in range(3)]
+                scene.add_sphere(center, 0.2,
+                                 scene.add_metal(albedo, rnd.uniform(0, 0.5)))
+            else:
+                scene.add_sphere(center, 0.2, scene.add_dielectric(1.5))
+    scene.add_sphere([0, 1, 0], 1.0, scene.add_dielectric(1.5))
+    scene.add_sphere([-4, 1, 0], 1.0, scene.add_lambertian([0.4, 0.2, 0.1]))
+    scene.add_sphere([4, 1, 0], 1.0, scene.add_metal([0.7, 0.6, 0.5], 0.0))
+    for i in range(len(scene.primitives)):
+        scene.add_node(None, i)
+    scene.camera = {
+        "fov": 20, "center": [13, 2, 3], "look_at": [0, 0, 0],
+        "defocus_angle": 0.6, "focus_distance": 10.0,
+        "width": 1200, "aspect_ratio": 16 / 9,
+    }
+    return scene
+
+
 CANNED = {
     "cornell_original": cornell_box_original,
     "cornell_volume": cornell_box_volume,
+    "book1_final": book1_final,
     "book2_final": book2_final,
 }
+SEEDED = ("book1_final", "book2_final")
+
+# The committed scenes under data/: file name -> (canned scene, seed).
+DATA_SCENES = {
+    "cornell_box_original.json": ("cornell_original", None),
+    "cornell_box_volume.json": ("cornell_volume", None),
+    "book1_final.json": ("book1_final", 0),
+    "book2_final_scene_10000_samples.json": ("book2_final", 0),
+}
+
+
+def build(name: str, seed: int | None = 0) -> SceneBuilder:
+    return CANNED[name](seed) if name in SEEDED else CANNED[name]()
 
 
 def main(argv=None) -> int:
@@ -269,7 +320,11 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=".", help="directory for local/data + local/output")
     p.add_argument("--samples", type=int, default=10)
     p.add_argument("--depth", type=int, default=50)
-    p.add_argument("--seed", type=int, default=0, help="book2 floor/cluster seed")
+    p.add_argument("--seed", type=int, default=0,
+                   help="random layout seed (book1_final, book2_final)")
+    p.add_argument("--out", default=None,
+                   help="write the scene JSON to this path instead of "
+                        "<root>/local/data/<name>.json")
     p.add_argument("-p", "--binary", default=None,
                    help="external renderer binary (reference workflow); "
                         "default runs the in-process renderer")
@@ -289,8 +344,8 @@ def main(argv=None) -> int:
         json.dump(settings, f, indent=2)
 
     name = args.name or args.scene
-    scene = CANNED[args.scene](args.seed) if args.scene == "book2_final" else CANNED[args.scene]()
-    json_path = os.path.join(data_dir, f"{name}.json")
+    scene = build(args.scene, args.seed)
+    json_path = args.out or os.path.join(data_dir, f"{name}.json")
     scene.write_json(json_path)
     print(f"wrote {json_path}")
 
@@ -298,7 +353,7 @@ def main(argv=None) -> int:
         return 0
     if args.binary:
         return subprocess.run([args.binary, json_path]).returncode
-    from raytrace2_tpu.app import main as app_main
+    from raytrace2.app import main as app_main
 
     return app_main([json_path, "--root", args.root])
 

@@ -2,11 +2,10 @@
 differentiable renderer.
 
 The reference has no gradients at all — this is north-star surface
-(BASELINE.json: "differentiable end-to-end w.r.t. geometry, material, and
-camera parameters"). The tool renders a TARGET image from a scene file,
+(ROADMAP.md: differentiable end-to-end w.r.t. geometry, material, and
+camera parameters). The tool renders a TARGET image from a scene file,
 perturbs chosen parameters, then optimizes them back with Adam on an L2
-image loss through `grad.render_image` (the Pallas custom-VJP path when the
-scene qualifies, XLA scan otherwise — grad.py routing).
+image loss through `grad.render_image` (the XLA scan bounce loop).
 
 Usage:
     python tools/optimize_scene.py SCENE.json \
@@ -24,12 +23,11 @@ import dataclasses
 import json
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytrace2_tpu import grad as grad_mod
-from raytrace2_tpu.scene import loader, schema
+from raytrace2 import grad as grad_mod
+from raytrace2.scene import loader, schema
 
 # leaf path -> (getter, setter) over the FlatScene pytree
 _LEAVES = {
@@ -128,16 +126,6 @@ def main(argv=None) -> int:
 
     scene_host, _ = loader.load_scene(args.scene, seed=args.seed)
     feat = scene_host.features()
-    # Route qualifying scenes through the Pallas custom-VJP path on
-    # accelerators (grad.render_image applies the gradient-kernel gates on
-    # top; Renderer.__post_init__ applies the same eligibility rule).
-    from raytrace2_tpu.ops.pallas import megakernel as mk
-
-    ms = feat["mega_sizes"]
-    feat["use_megakernel"] = (
-        jax.default_backend() not in ("cpu",)
-        and ms[0] + ms[1] + ms[4] + ms[5] <= mk.MAX_SMEM_RECORDS
-    )
     features = tuple(sorted(feat.items()))
     scene = schema.to_device(scene_host)
     render_kw = dict(width=args.width, height=args.height,
